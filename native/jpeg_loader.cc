@@ -3,7 +3,7 @@
 // The reference's data layer decodes JPEGs through OpenCV's C++ imread
 // (SURVEY §2.3 I/O row). Here decode is a C call that releases the GIL
 // (ctypes does this automatically), so the Python-side prefetcher overlaps
-// many decodes with TPU compute (host->HBM pipelining, SURVEY §2.4).
+// many decodes with device compute (host->device pipelining, SURVEY §2.4).
 
 #include <csetjmp>
 #include <cstdint>

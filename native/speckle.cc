@@ -1,6 +1,6 @@
 // Exact connected-component speckle filter (cv2.filterSpeckles semantics).
 //
-// The TPU pipeline uses the on-device label-propagation filter
+// The device pipeline uses the on-device label-propagation filter
 // (ops/disparity.speckle_filter); this native path is the host-side exact
 // reference and the fast option for host post-processing: union-find over
 // 4-connectivity where |d(p) - d(q)| <= max_diff, regions smaller than

@@ -1,4 +1,4 @@
-"""stereo_reconstruction_cv_tpu — a TPU-native stereo 3D-reconstruction framework.
+"""stereo_reconstruction_cv_tpu — a stereo 3D-reconstruction framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of the OpenCV reference
 project ``rafayaamirgull/stereo_reconstruction_cv`` (see SURVEY.md):
@@ -6,13 +6,14 @@ project ``rafayaamirgull/stereo_reconstruction_cv`` (see SURVEY.md):
 - chessboard camera calibration (Zhang init + Levenberg-Marquardt refinement)
 - two-view epipolar geometry (feature match + ratio test, robust F/E, pose)
 - stereo rectification (Bouguet) with a fused undistort-rectify-remap kernel
-- dense disparity via a TPU semi-global block matching (SGBM) pipeline
+- dense disparity via a semi-global block matching (SGBM) pipeline
 - sparse reconstruction via batched triangulation
 - learned (XFeat-style) feature detection/description/matching
 - disparity -> 3D point-cloud reprojection and PLY export
 
-Design is TPU-first: batched/vmapped solvers, static shapes, `lax.scan`
-recurrences, `shard_map` spatial sharding, Pallas kernels on the hot path.
+Design is accelerator-first: batched/vmapped solvers, static shapes, `lax.scan`
+recurrences, `shard_map` spatial sharding, a Pallas (Triton) kernel for the
+SGM sweeps on the GPU.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,7 @@
 """Chessboard corner detection + subpixel refinement.
 
 Replaces cv2.findChessboardCorners + cv2.cornerSubPix (reference
-gui.py:49-57, main.ipynb cell 1). TPU-first split (SURVEY §7 hard part 2):
+gui.py:49-57, main.ipynb cell 1). Device/host split (SURVEY §7 hard part 2):
 
   device: saddle-point response (Hessian determinant of a smoothed image),
           non-max suppression, batched subpixel refinement — dense,
@@ -159,13 +159,12 @@ def corner_subpix_patch(
     detector's per-frame refinement, models/xfeat._detect_post).
 
     `corner_subpix` bilinearly samples the full image 4x per window point
-    per iteration — ~4M scalar gathers for 1024 keypoints at win=3, which
-    TPUs execute serially (~42 ms/image at 960x536, the whole r3
-    config-4 regression). Here each corner instead extracts ONE (P, P)
+    per iteration — ~4M scalar gathers for 1024 keypoints at win=3. Here
+    each corner instead extracts ONE (P, P)
     patch around its initial integer location, and every iteration
     resamples the shifted window INSIDE the patch as two small batched
     matmuls (separable bilinear: S = Wy @ patch @ Wx^T) — gather-free
-    after the single patch fetch, and the matmuls ride the MXU.
+    after the single patch fetch.
 
     Iterates the same gradient-weighted 2x2 normal solve as
     `corner_subpix`; results match wherever the refinement stays within

@@ -3,7 +3,7 @@
 The reference's stereo-camera branch calibrates both cameras and their
 relative pose from simultaneously captured chessboard views
 (README.md:59-76 [branch]: per-camera K plus stereo extrinsics — the
-cv2.stereoCalibrate workflow). TPU-native design: both cameras' intrinsics
+cv2.stereoCalibrate workflow). Batched design: both cameras' intrinsics
 initialize from single-camera Zhang solves, the relative pose from the
 per-view pose pairs (R = R2 R1^T medoid), and one joint LM refines
 [K1, dist1, K2, dist2, R, T, per-view (rvec, tvec) of camera 1] against

@@ -9,7 +9,7 @@ Tab mapping (README.md:55-114; gui.py tabs):
   Tab 6 Disparity/Dense [branch]-> `disparity` / `reconstruct`
   Tab 7 XFeat matching [branch] -> `match --learned`
 plus `bench`. Outputs go to files (PNG/NPZ/PLY) instead of Tk windows —
-headless-first for TPU hosts (SURVEY §7 step 8).
+headless-first for accelerator hosts (SURVEY §7 step 8).
 """
 
 from __future__ import annotations
@@ -77,11 +77,11 @@ def cmd_stereo_calibrate(args):
 def _default_learned_checkpoint():
     """Shipped trained weights, so --learned without --model never runs a
     randomly initialized net silently. Picks the highest-versioned
-    checkpoints/xfeat_v* — the shipped best (docs/XFEAT_EVAL.json tracks
+    checkpoints/xfeat_v*.npz — the shipped best (docs/XFEAT_EVAL.json tracks
     its evaluation)."""
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "checkpoints")
-    cands = sorted(glob.glob(os.path.join(root, "xfeat_v*")))
+    cands = sorted(glob.glob(os.path.join(root, "xfeat_v*.npz")))
     if cands:
         return os.path.abspath(cands[-1])
     print("warning: no trained checkpoint found; using fresh-init weights",
@@ -251,7 +251,7 @@ def cmd_report(args):
         rb.viewer(tf.name)
     os.unlink(tf.name)
 
-    # Per-stage observability table (SURVEY §5 / VERDICT r3 item 6): the
+    # Per-stage observability table (SURVEY §5): the
     # same registry `--metrics` dumps, embedded in the report.
     from stereo_reconstruction_cv_tpu.utils.profiling import METRICS
 
@@ -332,8 +332,10 @@ def main(argv=None):
     # NOTE: x64 is deliberately NOT enabled here. Geometry/calibration
     # solves route to the host CPU backend (pipeline.stages._on_host_cpu)
     # where f32 LAPACK is already accurate (verified against the d3
-    # anchors), and jax_enable_x64 breaks Mosaic lowering of the Pallas
-    # kernels (i64/f64 leaks fail 'func.return' legalization).
+    # anchors).
+    from stereo_reconstruction_cv_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     p = argparse.ArgumentParser(prog="stereo-tpu", description=__doc__)
     p.add_argument("--metrics", default=None, metavar="OUT.json",
                    help="dump per-stage timings + counts (utils/profiling "
@@ -370,7 +372,7 @@ def main(argv=None):
     m.add_argument("--contrast-threshold", type=float, default=0.04)
     m.add_argument("--save", default=None)
     m.add_argument("--learned", action="store_true", help="XFeat-style matcher (Tab 7)")
-    m.add_argument("--model", default=None, help="orbax checkpoint for --learned")
+    m.add_argument("--model", default=None, help="checkpoint (.npz) for --learned")
     m.set_defaults(fn=cmd_match)
 
     tf = sub.add_parser("train-features", help="self-supervised XFeat training")
@@ -389,7 +391,7 @@ def main(argv=None):
     g.add_argument("--baseline", type=float, default=0.1)
     g.add_argument("--calibration", default=None)
     g.add_argument("--learned", action="store_true", help="XFeat-style matcher")
-    g.add_argument("--model", default=None, help="orbax checkpoint for --learned")
+    g.add_argument("--model", default=None, help="checkpoint (.npz) for --learned")
     g.add_argument("--cache", nargs="?", const=".stereo_tpu_cache", default=None,
                    metavar="DIR", help="persist/reuse stage results (StageCache)")
     g.set_defaults(fn=cmd_geometry)
@@ -456,7 +458,7 @@ def main(argv=None):
 
 
 def _validate_reference_ranges(args) -> None:
-    """Input-validation parity with the GUI (VERDICT r3 item 9): bad values
+    """Input-validation parity with the GUI: bad values
     warn and fall back to the reference defaults instead of erroring.
 
     - baseline must be a positive float, else 0.1 (gui.py:465-472)

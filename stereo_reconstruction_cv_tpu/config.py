@@ -49,7 +49,7 @@ class MatchConfig:
     # 0.75 in the standalone inspection tab (gui.py:241).
     ratio_geometry: float = 0.7
     ratio_inspect: float = 0.75
-    # Maximum keypoints kept per image (static shape bound for TPU).
+    # Maximum keypoints kept per image (static shape bound).
     max_keypoints: int = 4096
     # Descriptor length (XFeat-style learned descriptor; SIFT is 128).
     descriptor_dim: int = 64
@@ -69,7 +69,7 @@ class MatchConfig:
     # E-RANSAC gate (gui.py:142) assumes of SIFT's DoG-interpolated
     # keypoints. Classical path never uses it.
     lk_refine: bool = True
-    # r5 sweep (tools/xfeat_tune_d3.py, VERDICT r4 item 5): win 9 /
+    # Sweep (tools/xfeat_tune_d3.py): win 9 /
     # 16 iters closes the d3 rotation gap vs classical (R_angle 2.422 ->
     # 2.331 deg vs classical 2.387) with d1 unchanged — the wider patch +
     # deeper iteration stabilizes the LK alignment on d3's wide-baseline
@@ -88,7 +88,7 @@ class RobustConfig:
     # E via RANSAC with prob=0.999, threshold=1.0 px (gui.py:142).
     e_prob: float = 0.999
     e_threshold_px: float = 1.0
-    # Fixed hypothesis budget (TPU-native: batched, static shape). All
+    # Fixed hypothesis budget (batched, static shape). All
     # hypotheses solve/score simultaneously, so a large budget is cheap and
     # stabilizes the pose against small inlier sets.
     num_hypotheses: int = 1024
@@ -131,14 +131,10 @@ class SGBMConfig:
     # 8 = full SGM ("MODE_HH" analog, higher quality).
     num_directions: int = 5
     # DP scan chunking: blocks of `scan_chunk` scanned in parallel, warm-
-    # started with `scan_halo` halo elements. None = exact sequential scan
-    # (the default: on TPU the XLA chunked form loses to relayout cost;
-    # the Pallas aggregation kernel owns the fast path instead).
+    # started with `scan_halo` halo elements (an approximation). None =
+    # exact sequential aggregation, the default.
     scan_chunk: int | None = None
     scan_halo: int = 32
-    # Aggregation backend: 'pallas' (TPU sweep kernels, bit-exact, ~3x the
-    # XLA scans), 'xla' (lax.scan reference), or 'auto' (pallas on TPU).
-    backend: str = "auto"
     # Speckle backend: 'propagate' = device-side segmented min-scans
     # iterated to convergence (exact cv2.filterSpeckles parity on
     # convergence — real maps converge in 3-6 rounds; see speckle_filter);

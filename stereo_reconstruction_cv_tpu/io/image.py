@@ -1,5 +1,8 @@
 """Image loading/saving (host-side; PIL backend — no OpenCV dependency).
 
+PIL is imported where a file is decoded or written, so importing this
+module (and everything that imports it) needs no imaging package.
+
 Mirrors the reference's data-layer conventions (SURVEY §1 L1):
 a stereo pair folder holds exactly img1.jpg (left) + img2.jpg (right)
 (gui.py:96-100); calibration folders are globbed for *.jpg (gui.py:37).
@@ -14,7 +17,12 @@ from typing import List, Tuple
 import numpy as np
 
 from stereo_reconstruction_cv_tpu.errors import DataError
-from PIL import Image
+
+
+def _pil_image():
+    from PIL import Image
+
+    return Image
 
 
 def load_gray(path: str) -> np.ndarray:
@@ -28,7 +36,7 @@ def load_gray(path: str) -> np.ndarray:
         img = native.load_image(path, gray=True)
         if img is not None:
             return img
-    return np.asarray(Image.open(path).convert("L"))
+    return np.asarray(_pil_image().open(path).convert("L"))
 
 
 def load_rgb(path: str) -> np.ndarray:
@@ -39,11 +47,11 @@ def load_rgb(path: str) -> np.ndarray:
         img = native.load_image(path, gray=False)
         if img is not None:
             return img
-    return np.asarray(Image.open(path).convert("RGB"))
+    return np.asarray(_pil_image().open(path).convert("RGB"))
 
 
 def save_image(path: str, img: np.ndarray) -> None:
-    Image.fromarray(np.asarray(img)).save(path)
+    _pil_image().fromarray(np.asarray(img)).save(path)
 
 
 def load_stereo_pair(folder: str) -> Tuple[np.ndarray, np.ndarray]:

@@ -2,7 +2,7 @@
 
 The reference GUI renders every stage's imagery in Tk panes
 (gui.py:484-487, 573-577: keypoints, matches, epilines before/after,
-etc.). On a headless TPU host the equivalent front-end is one
+etc.). On a headless accelerator host the equivalent front-end is one
 self-contained HTML page: every stage visualization embedded as a base64
 PNG, numeric results as tables, and a link/embed of the interactive
 point-cloud viewer. `stereo-tpu report <pair>` drives the full pipeline

@@ -2,7 +2,7 @@
 
 The reference displays clouds in an interactive Open3D window
 (main.ipynb cell 12 +38, o3d.visualization.draw_geometries) — a GUI that
-cannot exist on a headless TPU host. The TPU-native front-end equivalent:
+cannot exist on a headless accelerator host. The headless equivalent:
 export ONE self-contained .html file (point data embedded as base64,
 inline WebGL renderer, no external assets or network) that any browser
 opens with orbit/zoom/pan controls. Closes the viewer row of SURVEY §2.1

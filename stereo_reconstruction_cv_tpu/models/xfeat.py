@@ -1,18 +1,22 @@
-"""XFeat-style learned feature detector/descriptor in Flax.
+"""XFeat-style learned feature detector/descriptor in plain JAX.
 
 The reference endorses XFeat learned matching as its accelerated feature
 path (README.md:24, 40-49 [branch xfeat_integ]; torch dependency in
 environment.yml:100). This is a ground-up JAX implementation of the same
 *idea* — a small convnet emitting a keypoint heatmap, dense 64-d
-descriptors and a reliability map — designed for the MXU: all convs are
-channels-last NHWC, bfloat16-friendly, static shapes, and detection is a
-top-k over the heatmap (no data-dependent shapes).
+descriptors and a reliability map: channels-last NHWC convolutions
+(`lax.conv_general_dilated`), static shapes, and detection as a top-k
+over the heatmap (no data-dependent shapes).
 
 Architecture (XFeat-flavored, not a weight-compatible port):
   keypoint branch: 8x8 space-to-depth of the grayscale image -> 1x1 conv
     stack -> (H/8, W/8, 65) logits (64 cell positions + dustbin).
   descriptor branch: strided conv pyramid 1 -> 24 -> 64 at 1/8 resolution
     with a skip fusion, emitting 64-d descriptors + reliability.
+
+Parameters are a nested dict {"params": {layer: {...}}} whose layer names
+(Conv_k, ConvBlock_k/{Conv_0, LayerNorm_0}) are those of the shipped
+checkpoints (models/checkpoint.py).
 
 Training: self-supervised homographic-pair distillation — warp an image
 with a random homography, require (i) descriptor InfoNCE between
@@ -22,55 +26,103 @@ One jitted train step, data-parallel over a device mesh ('data' axis).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import optax
 
 
 CELL = 8  # keypoint cell size (1/8 resolution), as in SuperPoint/XFeat
+_LN_EPS = 1e-6
+# Descriptor pyramid: (output channels, stride) of each ConvBlock.
+_BLOCKS = ((8, 1), (24, 2), (24, 1), (48, 2), (48, 1), (96, 2), (96, 1), (96, 1))
 
 
-class ConvBlock(nn.Module):
-    ch: int
-    stride: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Conv(self.ch, (3, 3), strides=(self.stride, self.stride), use_bias=False)(x)
-        x = nn.LayerNorm()(x)
-        return nn.relu(x)
+def _conv(x, kernel, stride: int = 1, bias=None):
+    """NHWC x HWIO convolution, SAME padding."""
+    y = jax.lax.conv_general_dilated(
+        x, kernel, (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y if bias is None else y + bias
 
 
-class XFeatNet(nn.Module):
+def _layer_norm(x, scale, bias):
+    mean = jnp.mean(x, axis=-1, keepdims=True)
+    var = jnp.mean(jnp.square(x - mean), axis=-1, keepdims=True)
+    return (x - mean) * jax.lax.rsqrt(var + _LN_EPS) * scale + bias
+
+
+def max_pool_same(x: jnp.ndarray, k: int) -> jnp.ndarray:
+    """k x k max pool, stride 1, SAME padding, over the last two axes."""
+    return jax.lax.reduce_window(
+        x, -jnp.inf, jax.lax.max, (1,) * (x.ndim - 2) + (k, k),
+        (1,) * x.ndim, "SAME",
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class XFeatNet:
     """Grayscale (B, H, W, 1) in [0, 1] -> (heatmap logits, descriptors,
     reliability). H, W must be multiples of 8."""
 
     desc_dim: int = 64
 
-    @nn.compact
-    def __call__(self, x):
+    def init(self, key, x: jnp.ndarray) -> dict:
+        """Fresh parameters (LeCun-normal kernels, zero biases); `x` only
+        fixes the input channel count."""
+        cin = x.shape[-1]
+        keys = iter(jax.random.split(key, 16))
+        kinit = jax.nn.initializers.lecun_normal()
+
+        def conv(k, ci, co, bias=True):
+            p = {"kernel": kinit(next(keys), (k, k, ci, co), jnp.float32)}
+            if bias:
+                p["bias"] = jnp.zeros((co,), jnp.float32)
+            return p
+
+        p = {
+            "Conv_0": conv(1, CELL * CELL * cin, 64),
+            "Conv_1": conv(1, 64, 64),
+            "Conv_2": conv(1, 64, CELL * CELL + 1),
+        }
+        ci = cin
+        for i, (co, _) in enumerate(_BLOCKS):
+            p[f"ConvBlock_{i}"] = {
+                "Conv_0": conv(3, ci, co, bias=False),
+                "LayerNorm_0": {"scale": jnp.ones((co,), jnp.float32),
+                                "bias": jnp.zeros((co,), jnp.float32)},
+            }
+            ci = co
+        p["Conv_3"] = conv(1, _BLOCKS[3][0], _BLOCKS[-1][0])
+        p["Conv_4"] = conv(1, _BLOCKS[-1][0], self.desc_dim)
+        p["Conv_5"] = conv(1, _BLOCKS[-1][0], 1)
+        return {"params": p}
+
+    def apply(self, params: dict, x: jnp.ndarray):
+        p = params["params"]
         B, H, W, _ = x.shape
         # --- keypoint branch: space-to-depth + 1x1 convs (cheap, full-res info)
         s2d = x.reshape(B, H // CELL, CELL, W // CELL, CELL, 1)
         s2d = s2d.transpose(0, 1, 3, 2, 4, 5).reshape(B, H // CELL, W // CELL, CELL * CELL)
-        k = nn.relu(nn.Conv(64, (1, 1))(s2d))
-        k = nn.relu(nn.Conv(64, (1, 1))(k))
-        kpt_logits = nn.Conv(CELL * CELL + 1, (1, 1))(k)  # (B, H/8, W/8, 65)
+        k = jax.nn.relu(_conv(s2d, **p["Conv_0"]))
+        k = jax.nn.relu(_conv(k, **p["Conv_1"]))
+        kpt_logits = _conv(k, **p["Conv_2"])  # (B, H/8, W/8, 65)
 
         # --- descriptor branch: strided pyramid to 1/8
-        d1 = ConvBlock(8)(x)            # H
-        d1 = ConvBlock(24, stride=2)(d1)  # H/2
-        d2 = ConvBlock(24)(d1)
-        d2 = ConvBlock(48, stride=2)(d2)  # H/4
-        d3 = ConvBlock(48)(d2)
-        d3 = ConvBlock(96, stride=2)(d3)  # H/8
-        d4 = ConvBlock(96)(d3)
-        d4 = ConvBlock(96)(d4)
-        fused = d4 + nn.Conv(96, (1, 1))(jax.image.resize(d2, d4.shape[:3] + (48,), "bilinear"))
-        desc = nn.Conv(self.desc_dim, (1, 1))(fused)  # (B, H/8, W/8, 64)
+        feats = []
+        h = x
+        for i, (_, stride) in enumerate(_BLOCKS):
+            blk = p[f"ConvBlock_{i}"]
+            h = _conv(h, blk["Conv_0"]["kernel"], stride)
+            h = jax.nn.relu(_layer_norm(h, **blk["LayerNorm_0"]))
+            feats.append(h)
+        d2, d4 = feats[3], feats[7]  # H/4 (48 ch) and H/8 (96 ch)
+        up = jax.image.resize(d2, d4.shape[:3] + (d2.shape[-1],), "bilinear")
+        fused = d4 + _conv(up, **p["Conv_3"])
+        desc = _conv(fused, **p["Conv_4"])  # (B, H/8, W/8, 64)
         # rsqrt(sum^2 + eps), NOT norm + eps: the norm's backward at an
         # exactly-zero vector is 0/0 = NaN, and warped training crops
         # produce constant-zero border cells whose descriptors are exactly
@@ -78,7 +130,7 @@ class XFeatNet(nn.Module):
         desc = desc * jax.lax.rsqrt(
             jnp.sum(desc * desc, axis=-1, keepdims=True) + 1e-12
         )
-        reliability = nn.sigmoid(nn.Conv(1, (1, 1))(fused)[..., 0])
+        reliability = jax.nn.sigmoid(_conv(fused, **p["Conv_5"])[..., 0])
         return kpt_logits, desc, reliability
 
 
@@ -126,12 +178,9 @@ def detect_pair(
     nms_radius: int = 4,
     image_refine: bool = True,
 ) -> Tuple[Features, Features]:
-    """Detect on a stereo pair with ONE batched network forward (B=2).
-
-    Per-image B=1 forwards leave the MXU underfed at the small channel
-    counts of this net and pay every launch overhead twice; batching the
-    pair roughly halves the per-image net cost (r4, bench config 4).
-    Identical outputs to two `detect` calls."""
+    """Detect on a stereo pair with ONE batched network forward (B=2):
+    per-image B=1 forwards pay every launch twice at the small channel
+    counts of this net. Identical outputs to two `detect` calls."""
     x = jnp.stack([img_left, img_right]).astype(jnp.float32) / 255.0
     kpt_logits, desc, reliability = model.apply(params, x[..., None])
     heats = heatmap_from_logits(kpt_logits)
@@ -154,15 +203,14 @@ def _detect_post(
     H, W = heat.shape
     # NMS via max-pool equality.
     k = 2 * nms_radius + 1
-    pooled = nn.max_pool(heat[None, ..., None], (k, k), padding="SAME")[0, ..., 0]
+    pooled = max_pool_same(heat, k)
     is_peak = (heat == pooled) & (heat > 0)
     scores = jnp.where(is_peak, heat, 0.0)
     # Tiled top-k: NMS peaks are > nms_radius apart (Chebyshev), so a
     # t x t tile with t <= nms_radius holds at most one peak (up to exact
     # float ties, which the tile argmax then breaks first-index like
     # top_k would among equals) — reduce each 4x4 tile to its max before
-    # the top_k, shrinking its input 16x (top_k over H*W floats was a
-    # measurable slice of the 45 ms/image r3 detect cost).
+    # the top_k, shrinking its input 16x.
     t = min(4, max(1, nms_radius))
     # Fall back to the flat path when the tile count can't supply k peaks
     # (top_k requires k <= n) — small crops with large max_keypoints.
@@ -204,10 +252,8 @@ def _detect_post(
         # refine to ~0.1 px on the intensity saddle; keypoints where the
         # refinement diverges past 1.5 px (edges, blobs) keep the heatmap
         # estimate.
-        # Patch-resident variant (r4): the full-image corner_subpix cost
-        # ~42 ms/image in scalar gathers — the whole r3 config-4
-        # regression; corner_subpix_patch is gather-free per iteration
-        # (one patch fetch, then batched-matmul resampling on the MXU).
+        # Patch-resident variant: one patch fetch per keypoint, then
+        # batched-matmul resampling (no per-iteration gathers).
         from stereo_reconstruction_cv_tpu.calib.chessboard import (
             corner_subpix_patch,
         )
@@ -255,8 +301,7 @@ def random_homography(
     descriptors rotation/scale-brittle (round-2 XFEAT_EVAL: d2/d3 pose
     failures)."""
     k1, k2, k3 = jax.random.split(key, 3)
-    # Explicit f32: under jax_enable_x64 the defaults promote to f64, and
-    # TPU lacks f64 SVD/LU.
+    # Explicit f32: under jax_enable_x64 the defaults promote to f64.
     corners = jnp.array([[0.0, 0.0], [W, 0.0], [0.0, H], [W, H]], jnp.float32)
     shift = jax.random.uniform(
         k1, (4, 2), minval=-max_shift, maxval=max_shift, dtype=jnp.float32
@@ -274,8 +319,7 @@ def random_homography(
         [ca * rel[:, 0] - sa * rel[:, 1], sa * rel[:, 0] + ca * rel[:, 1]], -1
     )
 
-    # 4-point homography with h33 = 1: an 8x8 linear solve (TPU-friendly;
-    # in-jit rectangular SVD aborts the TPU compiler).
+    # 4-point homography with h33 = 1: an 8x8 linear solve.
     def row(c, t):
         x, y = c
         u, v = t

@@ -1,1 +1,1 @@
-"""TPU-native compute ops: geometry, robust estimation, matching, disparity."""
+"""Device compute ops: geometry, robust estimation, matching, disparity."""

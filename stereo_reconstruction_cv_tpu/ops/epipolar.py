@@ -1,13 +1,13 @@
 """Two-view epipolar solvers: 8-point F/E, decomposition, pose recovery.
 
-TPU-native replacements for cv2.findFundamentalMat / cv2.findEssentialMat /
+Device replacements for cv2.findFundamentalMat / cv2.findEssentialMat /
 cv2.recoverPose (reference gui.py:135, 142, 145, 313, 316; main.ipynb cell 6).
 All solvers are weighted (a weight/mask vector makes shapes static for jit)
 and vmappable so the robust engine can run hundreds of minimal solves as one
-batched eigendecomposition on the MXU.
+batched eigendecomposition.
 
 Numerics: all solves run through Hartley normalization — raw 4K pixel
-coordinates cancel catastrophically in float32 (verified on TPU), normalized
+coordinates cancel catastrophically in float32, normalized
 coordinates are well conditioned in either precision.
 """
 
@@ -53,10 +53,8 @@ def normalize_points(pts: jnp.ndarray, weights: jnp.ndarray | None = None):
 def _smallest_eigvec_9(ATA: jnp.ndarray) -> jnp.ndarray:
     """Eigenvector of the smallest eigenvalue of a symmetric 9x9.
 
-    Inverse iteration (ops/linalg.py), not jnp.linalg.eigh: TPU eigh
-    lowering compiles pathologically slowly (minutes for one batched
-    (512, 9, 9) instance, measured) and is overkill for a null-vector
-    extraction."""
+    Inverse iteration (ops/linalg.py), not jnp.linalg.eigh: a general
+    batched eigh is overkill for a null-vector extraction."""
     return LA.smallest_eigvec(ATA, iters=8)
 
 

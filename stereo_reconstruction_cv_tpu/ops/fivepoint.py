@@ -1,4 +1,4 @@
-"""Batched Nistér-style 5-point essential solver, TPU-native.
+"""Batched Nistér-style 5-point essential solver, batched on the device.
 
 cv2.findEssentialMat runs Nistér's 5-point minimal solver inside RANSAC
 (reference gui.py:142); round 1/2 substituted the normalized 8-point

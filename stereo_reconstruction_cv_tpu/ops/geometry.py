@@ -1,6 +1,6 @@
 """Core camera & epipolar geometry — pure jnp, batched/vmappable, no I/O.
 
-TPU-native replacements for the reference's small native kernels
+Device replacements for the reference's small native kernels
 (SURVEY.md §2.3): cv2.Rodrigues, cv2.projectPoints (gui.py:70),
 cv2.computeCorrespondEpilines (gui.py:148-153), cv2.triangulatePoints
 (README.md:29 [branch]), cv2.reprojectImageTo3D (main.ipynb cell 11).
@@ -8,7 +8,7 @@ cv2.computeCorrespondEpilines (gui.py:148-153), cv2.triangulatePoints
 Conventions match OpenCV: points are (x, y) = (col, row); K is the 3x3
 upper-triangular intrinsic matrix; distortion is the 5-vector
 (k1, k2, p1, p2, k3). All functions preserve the dtype of their inputs
-(float64 for calibration-grade accuracy on host, float32/bfloat16 on TPU).
+(float64 for calibration-grade accuracy on host, float32 on the device).
 """
 
 from __future__ import annotations
@@ -115,7 +115,7 @@ def undistort_normalized(
 ) -> jnp.ndarray:
     """Invert the 5-coeff distortion by fixed-point iteration (cv2.undistortPoints).
 
-    Fixed iteration count keeps the op jit/TPU friendly (no dynamic loops).
+    Fixed iteration count keeps the op jit friendly (no dynamic loops).
     """
     xy = xy_dist
     for _ in range(num_iters):
@@ -200,7 +200,7 @@ def triangulate_points(
 
     Matches cv2.triangulatePoints (up to per-point scale: the returned vectors
     are unit-norm right-singular vectors). Batched: one 4x4 SVD per point via
-    vmap — an embarrassingly parallel solve on TPU.
+    vmap — an embarrassingly parallel solve.
     """
 
     def one(p1, p2):
@@ -213,7 +213,7 @@ def triangulate_points(
             ]
         )
         # Smallest right singular vector of A (4x4) == null vector of
-        # A^T A: inverse iteration (ops/linalg.py) — no TPU SVD lowering.
+        # A^T A: inverse iteration (ops/linalg.py), no SVD lowering.
         from stereo_reconstruction_cv_tpu.ops import linalg as LA
 
         return LA.smallest_eigvec(A.T @ A, iters=6)

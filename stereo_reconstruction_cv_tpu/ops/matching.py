@@ -1,8 +1,8 @@
-"""Descriptor matching: exact top-2 nearest neighbors on the MXU + ratio test.
+"""Descriptor matching: exact top-2 nearest neighbors by one matmul + ratio test.
 
 Replaces cv2.FlannBasedMatcher.knnMatch(k=2) + the Python ratio-test loop
 (reference gui.py:117-131, 211-241). FLANN is an *approximate* KD-tree search
-tuned for CPUs; on TPU one dense distance matmul is both faster and exact
+tuned for CPUs; on an accelerator one dense distance matmul is both faster and exact
 (exact ⊇ approximate), and deterministic.
 
 Static-shape convention: descriptor arrays are padded to a fixed capacity
@@ -30,7 +30,7 @@ def squared_distance_matrix(
     """(N, D), (M, D) -> (N, M) squared L2 distances via one matmul.
 
     ||a-b||^2 = ||a||^2 + ||b||^2 - 2 a.b — the inner product term is a
-    single MXU matmul; run in f32 accumulation regardless of input dtype.
+    single matmul; run in f32 accumulation regardless of input dtype.
     """
     n1 = jnp.sum(d1.astype(jnp.float32) ** 2, axis=-1, keepdims=True)
     n2 = jnp.sum(d2.astype(jnp.float32) ** 2, axis=-1, keepdims=True)

@@ -1,1 +1,1 @@
-"""Pallas TPU kernels for the hot dense-stereo path."""
+"""Hand-written Pallas kernels for the dense-stereo hot path (GPU)."""

@@ -5,7 +5,7 @@ golden Q output echoed in cell 8) and cv2.initUndistortRectifyMap +
 cv2.remap (gui.py:160-164). The rectification transform itself is tiny
 closed-form math (runs in f64 on host); the remap is the hot part: instead
 of materializing two CV_32F map planes and gathering through them (three
-full-image HBM round trips), `rectify_remap` computes the inverse map on the
+full-image device-memory round trips), `rectify_remap` computes the inverse map on the
 fly and bilinearly samples in one fused pass.
 
 Conventions follow OpenCV: alpha=-1 -> default scaling; alpha in [0, 1]
@@ -236,7 +236,7 @@ def rectify_map(
     v = jax.lax.broadcasted_iota(dtype, (H, W), 0)
     x = (u - P[0, 2].astype(dtype)) / P[0, 0].astype(dtype)
     y = (v - P[1, 2].astype(dtype)) / P[1, 1].astype(dtype)
-    # Invert in the compute dtype: TPU has no f64 LU decomposition.
+    # Invert in the compute dtype (f32 on the device path).
     Rinv = jnp.linalg.inv(R.astype(dtype))
     X = Rinv[0, 0] * x + Rinv[0, 1] * y + Rinv[0, 2]
     Y = Rinv[1, 0] * x + Rinv[1, 1] * y + Rinv[1, 2]
@@ -283,10 +283,9 @@ def _affine_params(K, dist, R, P, out_size):
 def _affine_resample(img: jnp.ndarray, params, out_size) -> jnp.ndarray:
     """Exact separable bilinear resample of an affine map as two banded
     matmuls: out = Wy @ img @ Wx^T with 2-banded weight rows built from
-    iota compares. Runs on the MXU at ~3 ms for a 4K frame vs ~60 ms for
-    the packed one-gather path (TPU gathers are near-serial); tap
-    masking matches cv2 BORDER_CONSTANT=0 exactly — an out-of-range tap
-    simply matches no weight column."""
+    iota compares, at HIGHEST precision (no reduced-precision matmul may
+    round the taps). Tap masking matches cv2 BORDER_CONSTANT=0 exactly —
+    an out-of-range tap simply matches no weight column."""
     sy, ty, sx, tx = params
     Wo, Ho = out_size
     H, W = img.shape
@@ -317,11 +316,10 @@ def remap_bilinear(img: jnp.ndarray, src_map: jnp.ndarray) -> jnp.ndarray:
     img (H, W) or (H, W, C); map (Ho, Wo, 2) of source (x, y). Out-of-range
     samples are 0, matching cv2's default border.
 
-    uint8 single-plane images take the packed-gather fast path: the 2x2
+    uint8 single-plane images take the packed-gather path: the 2x2
     bilinear neighborhood is packed into one uint32 per source pixel
-    (zero-padded one-ring), so the resample is ONE gather instead of four —
-    TPU gathers dominate remap cost (measured 4K: 95 ms/gather), so this
-    is ~4x. Other dtypes use the generic four-tap path below."""
+    (zero-padded one-ring), so the resample is ONE gather instead of four.
+    Other dtypes use the generic four-tap path below."""
     if img.dtype == jnp.uint8 and img.ndim == 2:
         return _remap_bilinear_packed_u8(img, src_map)
     H, W = img.shape[:2]
@@ -418,8 +416,7 @@ def rectify_remap(
     When the map is exactly separable-affine (identity rectification
     rotation, no distortion — the pre-aligned-rig case and BASELINE
     config 3's calibrated geometry) and the geometry is concrete, the
-    resample runs as two banded matmuls on the MXU (~20x the gather
-    path; _affine_resample)."""
+    resample runs as two banded matmuls (_affine_resample)."""
     if out_size is None:
         out_size = (img.shape[1], img.shape[0])
     if img.ndim == 2:

@@ -10,7 +10,7 @@ slide the right patch to the sub-pixel offset that best aligns the image
 content (classic Lucas-Kanade / KLT, the same machinery cv2 users reach
 with calcOpticalFlowPyrLK after a coarse matcher).
 
-TPU-first shape: every match refines in parallel (vmap over matches), a
+Device-first shape: every match refines in parallel (vmap over matches), a
 fixed iteration count of 2x2 normal-equation solves on bilinearly sampled
 patches — the same pattern as calib/chessboard.corner_subpix (the batched
 cv2.cornerSubPix), but aligning patch-to-patch ACROSS images instead of

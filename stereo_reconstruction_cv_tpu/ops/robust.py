@@ -1,4 +1,4 @@
-"""Fixed-budget batched robust estimation (RANSAC / LMedS) — TPU-native.
+"""Fixed-budget batched robust estimation (RANSAC / LMedS), batched on the device.
 
 Replaces cv2.findFundamentalMat(FM_LMEDS) (gui.py:135) and
 cv2.findEssentialMat(RANSAC, prob=0.999, thr=1.0) (gui.py:142). Instead of

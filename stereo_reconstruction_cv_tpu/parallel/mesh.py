@@ -5,7 +5,7 @@ The framework uses a 2D logical mesh:
   'data'  — batch parallelism over stereo pairs / calibration views
             (DCN-friendly: no intra-step communication)
   'space' — spatial parallelism: image rows sharded across chips for the
-            dense-disparity cost volume (ICI halo exchange at shard
+            dense-disparity cost volume (halo exchange at shard
             boundaries) — the project's analog of sequence/context
             parallelism (SURVEY §2.4, §5 long-context row)
 """

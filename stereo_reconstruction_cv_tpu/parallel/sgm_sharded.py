@@ -4,27 +4,27 @@ The dense cost volume is the scale dimension of this project (a 4K x 256
 volume is ~2.1G cost entries — SURVEY §5). We shard it two ways:
 
   batch axis  -> 'data'  (independent pairs, zero communication)
-  image rows  -> 'space' (ICI halo exchange at shard boundaries)
+  image rows  -> 'space' (halo exchange at shard boundaries)
 
 Horizontal SGM paths are row-local, so row sharding is free for them.
 Vertical/diagonal paths carry state across rows; the exact recurrence is
 sequential across shards, so we use the standard halo warm-start scheme
 (as in GPU tiled-SGM implementations): each shard receives `halo` extra
-rows from its neighbors via `lax.ppermute` over ICI, runs its scans from a
+rows from its neighbors via `lax.ppermute`, runs its scans from a
 zero carry at the extended boundary, and discards the halo outputs. SGM
 path influence decays geometrically with P2 smoothing, so a modest halo
 (default 32 rows) reproduces the single-device result almost everywhere
 (tested >=99% of valid pixels within 1/16 px).
 
-The speckle filter's connected-component flood is ALSO row-sharded (r5,
-VERDICT r4 item 1b): min-label propagation is a commutative, monotone
+The speckle filter's connected-component flood is ALSO row-sharded:
+min-label propagation is a commutative, monotone
 fixpoint, so each shard floods its local rows and exchanges only its
 boundary-row labels with neighbors via `lax.ppermute` each round until
 global quiescence — the converged labels are exactly the single-device
 ones (unique fixpoint). Only the component-size epilogue (two label
-sorts) runs on all-gathered labels per shard (one (H, W) int32 frame over
-ICI), replacing the r4 "regather rows, then speckle" serialization that
-made speckle the unsharded Amdahl floor of the e2e frame.
+sorts) runs on all-gathered labels per shard (one (H, W) int32 frame),
+replacing the r4 "regather rows, then speckle" serialization that made
+speckle the unsharded Amdahl floor of the e2e frame.
 """
 
 from __future__ import annotations
@@ -99,12 +99,12 @@ def sharded_speckle_filter(
     max_diff: float = 32.0,
     max_rounds: int = 96,
 ) -> jnp.ndarray:
-    """Row-sharded exact cv2.filterSpeckles-parity mask (VERDICT r4 1b).
+    """Row-sharded exact cv2.filterSpeckles-parity mask.
 
     disp/valid: (B, H, W) sharded P('data', 'space', None). The min-label
-    flood runs shard-locally (Pallas active-block kernels on TPU, the XLA
-    doubling flood elsewhere) with ONE boundary-row label exchange per
-    round: shard boundaries are just extra relaxation edges of the same
+    flood (the XLA doubling flood) runs shard-locally with ONE boundary-row
+    label exchange per round: shard boundaries are just extra relaxation
+    edges of the same
     monotone min-fixpoint, so iterating {local flood, boundary merge} to
     global quiescence (psum'd change flag) converges to exactly the
     single-device component labels — the fixpoint is unique regardless of
@@ -135,7 +135,6 @@ def sharded_speckle_filter(
     """
     ns = mesh.shape["space"]
     spec = P("data", "space", None)
-    use_pallas = jax.default_backend() == "tpu"
     fwd = [(i, i + 1) for i in range(ns - 1)]
     bwd = [(i + 1, i) for i in range(ns - 1)]
 
@@ -185,102 +184,39 @@ def sharded_speckle_filter(
         def global_changed(c):
             return jax.lax.psum(c.astype(jnp.int32), ("data", "space")) > 0
 
-        if use_pallas:
-            from stereo_reconstruction_cv_tpu.ops.pallas.speckle_pallas import (
-                flood_flag_init,
-                flood_round_flagged,
-            )
-
-            ch_i, cv_i = ch.astype(jnp.int32), cv.astype(jnp.int32)
-            rf0, cs0 = flood_flag_init(h, W)
-            Gr, Gc = rf0.shape[0], cs0.shape[0]
-            Wt = W // Gc
-            vround = jax.vmap(flood_round_flagged)
-
-            def local_fixpoint(m):
-                """Shard-local flood of m to ITS fixpoint (no exchanges):
-                used by the override propagation in the epilogue."""
-                rfb_ = jnp.broadcast_to(rf0, (b, Gr))
-                csb_ = jnp.broadcast_to(cs0, (b, Gc))
-
-                def bd(s):
-                    m_, rf_, cs_, _, i_ = s
-                    m_, rf_, cs_, c_ = vround(m_, ch_i, cv_i, rf_, cs_)
-                    return m_, rf_, cs_, global_changed(jnp.any(c_)), i_ + 1
-
-                m, rf_, cs_, c0 = vround(m, ch_i, cv_i, rfb_, csb_)
-                m, _, _, _, _ = jax.lax.while_loop(
-                    lambda s: s[3] & (s[4] < max_rounds),
-                    bd, (m, rf_, cs_, global_changed(jnp.any(c0)), jnp.int32(1)),
-                )
-                return m
-
-            def step(lab, rf, cs):
-                lab, rf, cs, c1 = vround(lab, ch_i, cv_i, rf, cs)
-                lab, chg_top, chg_bot = merge(lab)
-                anyt = jnp.any(chg_top, axis=1).astype(jnp.int32)  # (b,)
-                anyb = jnp.any(chg_bot, axis=1).astype(jnp.int32)
-                # Merged boundary rows must re-run: flag their row blocks
-                # AND the col blocks over the changed columns (a row pass
-                # alone cannot propagate the merge down a column).
-                rf = rf.at[:, 0].max(anyt).at[:, -1].max(anyb)
-                cbl = (
-                    jnp.any(chg_top.reshape(b, Gc, Wt), axis=2)
-                    | jnp.any(chg_bot.reshape(b, Gc, Wt), axis=2)
-                ).astype(jnp.int32)
-                cs = jnp.maximum(cs, cbl)
-                changed = jnp.any(c1) | jnp.any(anyt > 0) | jnp.any(anyb > 0)
-                return lab, rf, cs, global_changed(changed)
-
-            rfb = jnp.broadcast_to(rf0, (b, Gr))
-            csb = jnp.broadcast_to(cs0, (b, Gc))
-            lab, rf, cs, chg = step(lab0, rfb, csb)
-
-            def cond(s):
-                return s[3] & (s[4] < max_rounds)
-
-            def body(s):
-                lab, rf, cs, _, i = s
-                lab, rf, cs, chg = step(lab, rf, cs)
-                return lab, rf, cs, chg, i + 1
-
-            lab, _, _, _, _ = jax.lax.while_loop(
-                cond, body, (lab, rf, cs, chg, jnp.int32(1))
-            )
-        else:
-            def local_fixpoint(m):
-                def bd(s):
-                    m_, _, i_ = s
-                    new = DP._seg_min_flood(m_, ch, axis=2, big=sink)
-                    new = DP._seg_min_flood(new, cv, axis=1, big=sink)
-                    return new, global_changed(jnp.any(new != m_)), i_ + 1
-
-                m, c, _ = bd((m, None, jnp.int32(0)))
-                m, _, _ = jax.lax.while_loop(
-                    lambda s: s[1] & (s[2] < max_rounds), bd,
-                    (m, c, jnp.int32(1)),
-                )
-                return m
-
-            def step(lab):
-                new = DP._seg_min_flood(lab, ch, axis=2, big=sink)
+        def local_fixpoint(m):
+            def bd(s):
+                m_, _, i_ = s
+                new = DP._seg_min_flood(m_, ch, axis=2, big=sink)
                 new = DP._seg_min_flood(new, cv, axis=1, big=sink)
-                c1 = jnp.any(new != lab)
-                new, chg_top, chg_bot = merge(new)
-                changed = c1 | jnp.any(chg_top) | jnp.any(chg_bot)
-                return new, global_changed(changed)
+                return new, global_changed(jnp.any(new != m_)), i_ + 1
 
-            lab, chg = step(lab0)
+            m, c, _ = bd((m, None, jnp.int32(0)))
+            m, _, _ = jax.lax.while_loop(
+                lambda s: s[1] & (s[2] < max_rounds), bd,
+                (m, c, jnp.int32(1)),
+            )
+            return m
 
-            def cond(s):
-                return s[1] & (s[2] < max_rounds)
+        def step(lab):
+            new = DP._seg_min_flood(lab, ch, axis=2, big=sink)
+            new = DP._seg_min_flood(new, cv, axis=1, big=sink)
+            c1 = jnp.any(new != lab)
+            new, chg_top, chg_bot = merge(new)
+            changed = c1 | jnp.any(chg_top) | jnp.any(chg_bot)
+            return new, global_changed(changed)
 
-            def body(s):
-                lab, _, i = s
-                lab, chg = step(lab)
-                return lab, chg, i + 1
+        lab, chg = step(lab0)
 
-            lab, _, _ = jax.lax.while_loop(cond, body, (lab, chg, jnp.int32(1)))
+        def cond(s):
+            return s[1] & (s[2] < max_rounds)
+
+        def body(s):
+            lab, _, i = s
+            lab, chg = step(lab)
+            return lab, chg, i + 1
+
+        lab, _, _ = jax.lax.while_loop(cond, body, (lab, chg, jnp.int32(1)))
 
         # ---- sharded size epilogue (module docstring steps 1-3) ----
         T = int(max_speckle_size)
@@ -464,17 +400,17 @@ def sharded_sgbm_disparity_exact(
     right: jnp.ndarray,
     cfg: SGBMConfig,
 ):
-    """Row-sharded SGBM that is BIT-IDENTICAL to the single-device XLA
-    backend (ops.disparity.sgbm_disparity with backend='xla', plain scans).
+    """Row-sharded SGBM that is BIT-IDENTICAL to the single-device pipeline
+    (ops.disparity.sgbm_disparity, exact aggregation).
 
     Horizontal paths and every per-pixel stage are row-local; the cost
     volume uses an exact 6-row halo; the vertical/diagonal paths hand
-    their (W, D) DP carries shard-to-shard over ICI (lax.ppermute) in
+    their (W, D) DP carries shard-to-shard (lax.ppermute) in
     path order — ns sequential rounds, each round computing one shard's
     rows while the others idle. Exactness therefore costs ~ns x the
     vertical-sweep time; use the default halo warm-start mode when
     bit-reproducibility across mesh shapes is not required
-    (VERDICT r2 item 7; reference hot loop main.ipynb cell 10)."""
+    (reference hot loop main.ipynb cell 10)."""
     ns = mesh.shape["space"]
     spec = P("data", "space", None)
     cap = cfg.pre_filter_cap
@@ -517,14 +453,14 @@ def sharded_sgbm_disparity_exact(
 
     def seq_dirs(C, dir_list, reverse_order: bool, ncw: int = 16):
         """Sum of L volumes for directions whose scans cross shards —
-        WAVEFRONT-pipelined over column chunks (r5, VERDICT r4 item 8).
+        WAVEFRONT-pipelined over column chunks.
 
         The r4 implementation serialized whole shards: ns rounds, each
         computing one shard's rows while the others' results were
         discarded, costing ~ns x the vertical-sweep work. Here the W axis
         splits into ncw chunks and shard s scans chunk j at wavefront
         step s + j, as soon as the upstream shard's carry for that chunk
-        arrives over ICI (lax.ppermute) — after an (ns-1)-step fill every
+        arrives (lax.ppermute) — after an (ns-1)-step fill every
         shard streams continuously, so the cross-shard sweep costs
         (ns-1+ncw)/ncw local passes instead of ns.
 
@@ -638,11 +574,10 @@ def sharded_sgbm_disparity_exact(
         le = _replicated_halos(l, _COST_HALO, ns)
         re = _replicated_halos(r, _COST_HALO, ns)
         C = jax.vmap(lambda a, b: local_cost(a, b, my))(le, re)
-        S = jnp.zeros_like(C)
-        for dx, _ in h_dirs:
-            S = S + jax.vmap(
-                lambda c: DP._scan_dir(c, dx, 0, cfg.p1, cfg.p2, None)
-            )(C)
+        # Horizontal paths stay inside a shard's rows: the exact sweeps.
+        S = jax.vmap(
+            lambda c: DP.sgm_aggregate_exact(c, cfg.p1, cfg.p2, h_dirs)
+        )(C)
         S = S + seq_dirs(C, down_dirs, reverse_order=False)
         if up_dirs:
             S = S + seq_dirs(C, up_dirs, reverse_order=True)

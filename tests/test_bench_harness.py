@@ -1,6 +1,6 @@
-"""Benchmark-harness mechanics (VERDICT r3 item 1): headline-first-and-
+"""Benchmark-harness mechanics: headline-first-and-
 last emission, per-config alarm caps, suite-budget skips. Uses stub
-configs — the real suite runs on the TPU via bench.py."""
+configs — the real suite runs on the GPU via bench.py."""
 
 import json
 import time

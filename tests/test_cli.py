@@ -66,14 +66,14 @@ def test_report_verb(tiny_pair, tmp_path, capsys):
         assert sec in html
     assert "data:image/png;base64," in html
     assert "srcdoc=" in html
-    # The observability registry is embedded (VERDICT r3 item 6).
+    # The observability registry is embedded.
     assert "time/rectify_pair_s" in html
 
 
 @pytest.mark.slow
 def test_metrics_dump(tiny_pair, tmp_path, capsys):
-    """--metrics dumps the per-stage observability registry (VERDICT r3
-    item 6): stage timings plus the counts the reference prints."""
+    """--metrics dumps the per-stage observability registry:
+    stage timings plus the counts the reference prints."""
     import json
 
     from stereo_reconstruction_cv_tpu.utils.profiling import METRICS

@@ -132,7 +132,7 @@ class TestRobust:
 
     def test_static_shape_mask_path(self, rng):
         """Points padded to a static size with a mask must give the same
-        model as the unpadded call — the TPU calling convention."""
+        model as the unpadded call — the static-shape calling convention."""
         sc = make_scene(rng, n=100, noise=0.2)
         pad = 156
         x1p = np.vstack([sc["x1"], np.zeros((pad, 2))])

@@ -1,6 +1,6 @@
 """5-point essential solver: minimal-solve exactness, planar recovery.
 
-The planar case is the reason the solver exists (VERDICT r2 item 5): the
+The planar case is the reason the solver exists: the
 8-point algorithm is degenerate when all points are coplanar, while
 Nistér's 5-point is not. cv2.findEssentialMat is 5-point (reference
 gui.py:142)."""
@@ -65,7 +65,7 @@ def test_minimal_exact(rng, seed):
 
 
 def test_minimal_exact_f32():
-    """The solver holds up in float32 (the TPU execution dtype)."""
+    """The solver holds up in float32 (the device execution dtype)."""
     r = np.random.default_rng(1)
     R = _rodrigues(r.standard_normal(3) * 0.2)
     t = r.standard_normal(3)

@@ -114,8 +114,8 @@ class TestLearnedMatcher:
         fresh init on the bundled pair (235 vs ~74 matches at train time)."""
         import os
 
-        ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "xfeat_v0")
-        if not os.path.isdir(ckpt):
+        ckpt = os.path.join(os.path.dirname(__file__), "..", "checkpoints", "xfeat_v0.npz")
+        if not os.path.exists(ckpt):
             pytest.skip("no shipped checkpoint")
         imL = cv2.resize(cv2.imread("/root/reference/dataset/d2/img1.jpg", 0), (320, 184))
         imR = cv2.resize(cv2.imread("/root/reference/dataset/d2/img2.jpg", 0), (320, 184))

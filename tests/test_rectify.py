@@ -141,7 +141,7 @@ class TestPackedRemap:
 class TestAffineResample:
     @pytest.mark.slow  # full-frame compare; packed-remap parity stays fast
     def test_affine_path_matches_gather(self, rng):
-        """Identity-R rectification takes the banded-matmul MXU path
+        """Identity-R rectification takes the banded-matmul path
         (_affine_resample); it must agree with the map+gather path to one
         u8 level everywhere (only f32 summation order differs)."""
         img = jnp.asarray(rng.integers(0, 255, size=(120, 160)).astype(np.uint8))

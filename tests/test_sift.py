@@ -1,4 +1,4 @@
-"""DoG scale-space SIFT semantics vs cv2 (VERDICT r2 item 4).
+"""DoG scale-space SIFT semantics vs cv2.
 
 The reference GUI exposes SIFT's contrastThreshold over [0, 0.1]
 (gui.py:212, 546-553). The detector must reproduce cv2's ABSOLUTE

@@ -1,6 +1,6 @@
 """StageCache wiring across the pipeline (SURVEY §5 checkpoint/resume row).
 
-VERDICT r2 item 6: geometry, rectify and disparity must all restart from
+Geometry, rectify and disparity must all restart from
 their persisted npz — a second `cli reconstruct` on the same pair skips
 straight to SGBM (and a second disparity call skips even that).
 """

@@ -1,5 +1,7 @@
 """XFeat-style model tests: shapes, training step, learned matching sanity."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -17,6 +19,61 @@ def model():
 @pytest.fixture(scope="module")
 def state_tx(model):
     return XF.create_train_state(jax.random.PRNGKey(0), model, (64, 96))
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_V4 = os.path.join(_HERE, "..", "checkpoints", "xfeat_v4.npz")
+
+
+class TestPlainJaxNet:
+    def test_forward_matches_recorded_outputs(self, model):
+        """The shipped checkpoint through the plain-JAX net reproduces the
+        outputs recorded from the same weights (f32, precision highest)."""
+        from stereo_reconstruction_cv_tpu.models import checkpoint as CK
+
+        params = CK.load_params(_V4)
+        z = np.load(os.path.join(_HERE, "data", "xfeat_v4_forward.npz"))
+        x = np.stack([z["left"], z["right"]]).astype(np.float32)[..., None] / 255.0
+        with jax.default_matmul_precision("highest"):
+            logits, desc, rel = model.apply(params, jnp.asarray(x))
+        np.testing.assert_allclose(np.asarray(logits), z["logits"], atol=1e-4)
+        np.testing.assert_allclose(np.asarray(desc), z["desc"], atol=1e-5)
+        np.testing.assert_allclose(np.asarray(rel), z["reliability"], atol=1e-5)
+
+    def test_init_has_the_checkpoint_tree(self, model):
+        from stereo_reconstruction_cv_tpu.models import checkpoint as CK
+
+        fresh = model.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 1)))
+        CK.load_params(_V4, like=fresh)  # raises on any path/shape mismatch
+
+    def test_max_pool_same(self):
+        x = jnp.asarray(np.arange(20, dtype=np.float32).reshape(4, 5))
+        got = np.asarray(XF.max_pool_same(x, 3))
+        want = np.array([[max(x[max(i - 1, 0):i + 2, max(j - 1, 0):j + 2].ravel())
+                          for j in range(5)] for i in range(4)])
+        np.testing.assert_array_equal(got, want)
+
+
+class TestNpzCheckpoint:
+    def test_roundtrip_by_tree_path(self, tmp_path):
+        from stereo_reconstruction_cv_tpu.models import checkpoint as CK
+
+        params = {"params": {"a": {"kernel": jnp.ones((2, 3))},
+                             "b": {"bias": jnp.arange(4.0)}}}
+        path = str(tmp_path / "ck")
+        CK.save_params(path, params)
+        assert sorted(np.load(path + ".npz").files) == ["params/a/kernel", "params/b/bias"]
+        back = CK.load_params(path, like=params)
+        for x, y in zip(jax.tree_util.tree_leaves(params), jax.tree_util.tree_leaves(back)):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+    def test_mismatch_is_refused(self, tmp_path):
+        from stereo_reconstruction_cv_tpu.models import checkpoint as CK
+
+        path = str(tmp_path / "ck.npz")
+        CK.save_params(path, {"params": {"a": jnp.ones((2, 3))}})
+        with pytest.raises(ValueError, match="params/a"):
+            CK.load_params(path, like={"params": {"a": jnp.ones((3, 2))}})
 
 
 @pytest.mark.slow
@@ -58,15 +115,13 @@ class TestShapes:
     def test_tiled_topk_matches_flat(self, model, state_tx, rng):
         """The 4x4 tile-max reduction before top_k must select the same
         peak set as the flat top_k (NMS guarantees one peak per tile)."""
-        import flax.linen as nn
-
         state, _ = state_tx
         img = rng.integers(0, 255, size=(64, 96)).astype(np.uint8)
         x = (jnp.asarray(img).astype(jnp.float32) / 255.0)[None, ..., None]
         logits, _, _ = model.apply(state.params, x)
         heat = XF.heatmap_from_logits(logits)[0]
         k = 9
-        pooled = nn.max_pool(heat[None, ..., None], (k, k), padding="SAME")[0, ..., 0]
+        pooled = XF.max_pool_same(heat, k)
         scores = jnp.where((heat == pooled) & (heat > 0), heat, 0.0)
         H, W = scores.shape
         flat_top, flat_idx = jax.lax.top_k(scores.ravel(), 32)

@@ -8,7 +8,7 @@ diagnosis started from v2 scoring 4-9% here (keypoint head trained with
 a consistency-only loss — see models/xfeat.harris_cell_targets).
 
 Usage: python tools/xfeat_warpcheck.py [checkpoint] [d1 d2 ...]
-Runs on CPU by default so the TPU stays free for training.
+Runs on CPU by default so the accelerator stays free for training.
 """
 
 import os
@@ -61,10 +61,10 @@ def warp_true_rate(ckpt: str, dataset: str, seeds=(3, 4, 5), max_kpts=2048):
 def main():
     args = sys.argv[1:]
     ckpt = args[0] if args else None
-    if ckpt is None or not os.path.isdir(ckpt):
+    if ckpt is None or not os.path.exists(ckpt):
         import glob
 
-        ckpt = sorted(glob.glob("checkpoints/xfeat_v*"))[-1]
+        ckpt = sorted(glob.glob("checkpoints/xfeat_v*.npz"))[-1]
     datasets = args[1:] or ["d1", "d2"]
     print(f"checkpoint: {ckpt}")
     for d in datasets:
